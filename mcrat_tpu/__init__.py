@@ -1,6 +1,6 @@
-"""mcrat_tpu: a TPU-native Monte Carlo radiative-transfer framework.
+"""mcrat_tpu: a JAX Monte Carlo radiative-transfer framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of lazzati-astro/MCRaT
+A from-scratch JAX/XLA re-design of the capabilities of lazzati-astro/MCRaT
 (special-relativistic Monte Carlo photon transport through hydrodynamic GRB-jet
 outflows, with polarized Klein-Nishina Compton scattering and cyclo-synchrotron
 emission/absorption).
@@ -11,9 +11,9 @@ Design principles
   jit-compiled transport steps (replacing the reference's serial per-event loop,
   Src/mclib.c:1107).
 * All physics kernels are pure vectorized functions over ``(N,)`` photon axes.
-* Randomness is counter-based (threefry) keyed by (photon, round) for
-  reproducible sharded sampling.
-* Multi-chip scaling uses ``jax.sharding`` over a device mesh: the photon axis is
+* Randomness comes from ``jax.random`` keys split per round (ops.rng.make_key
+  picks the implementation).
+* Multi-device scaling uses ``jax.sharding`` over a device mesh: the photon axis is
   sharded (the analogue of MCRaT's embarrassingly-parallel MPI photon batches),
   the decimated hydro frame is replicated, and statistics ride XLA collectives.
 """

@@ -7,7 +7,10 @@ Replaces the reference binaries (reference: Makefile:17-28):
 
 Ranks are independent OS processes or loop iterations (photon batches never
 communicate), so "N ranks" is just --rank/--num-ranks; a shell loop, SLURM
-array, or one host driving all ranks sequentially all work.
+array, or one host driving all ranks sequentially all work.  On a GPU host a
+JAX process reserves most of its card's memory, so run ranks one after another
+on a card, or one per card via CUDA_VISIBLE_DEVICES; one process drives all
+of a host's cards for one rank with --mesh N.
 """
 from __future__ import annotations
 
@@ -198,6 +201,14 @@ def main(argv=None):
             )
         print(json.dumps({str(k): v for k, v in counts.items()}))
         return 0
+
+    try:
+        import h5py  # noqa: F401
+    except ModuleNotFoundError:
+        parser.error("run writes its output as HDF5 and needs h5py, which is not installed")
+    from .runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     from .config import HydroSim
     from .driver import (

@@ -167,7 +167,7 @@ class Config:
     n_gamma: int = 3  # N_GAMMA subgroups (reference: Src/hot_x_section.h:17)
 
     # --- numerics (new; no reference equivalent) ----------------------------------
-    # float32 is the TPU-native fast path; float64 is for CPU validation runs.
+    # float32 is the accelerator fast path; float64 is for CPU validation runs.
     dtype: str = "float32"
     # Max scatter rounds per frame inside the batched transport while_loop; purely a
     # safety bound (a photon deep in the jet scatters ~tau^2 times per frame).

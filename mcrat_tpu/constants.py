@@ -31,7 +31,7 @@ ERG_TO_KEV = 1.0 / 1.6e-9
 
 # Electron rest-mass momentum scale m_e * c [g cm/s]. Photon four-momenta in this
 # framework are stored dimensionless, normalized by this scale, which keeps the
-# dynamic range friendly to float32 on TPU (p0_hat = h nu / (m_e c^2)).
+# dynamic range friendly to float32 (p0_hat = h nu / (m_e c^2)).
 ME_C = M_EL * C_LIGHT
 # Electron rest energy [erg]
 ME_C2 = M_EL * C_LIGHT * C_LIGHT

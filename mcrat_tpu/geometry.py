@@ -1,6 +1,6 @@
 """Vectorized coordinate geometry.
 
-TPU-native re-design of the reference geometry layer (Src/geometry.c).  The
+JAX re-design of the reference geometry layer (Src/geometry.c).  The
 reference selects one (DIMENSIONS x GEOMETRY) combination at compile time via
 ``#if`` forests; here every transform is a pure batched function dispatching on
 the static :class:`~mcrat_tpu.config.Config` at trace time, so a single build

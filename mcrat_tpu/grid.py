@@ -1,6 +1,6 @@
 """Hydro frame data structures and device-side spatial indexing.
 
-TPU-native re-design of the reference's ``struct hydro_dataframe``
+JAX re-design of the reference's ``struct hydro_dataframe``
 (Src/mcrat.h:194-244) and its containing-cell search (Src/geometry.c:350-676).
 
 Two structural upgrades over the reference:
@@ -22,11 +22,11 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from . import pytree as struct
 
 from .config import Config, Dims, Geometry
 from . import geometry as geo
-from .constants import A_RAD, M_P
+from .constants import A_RAD
 
 
 @struct.dataclass
@@ -62,18 +62,11 @@ class HydroFrame:
     # non-thermal electron number density per cell (zeros when off)
     nonthermal_dens: jax.Array
     # hot-path property matrix (16, Ncell), TRANSPOSED so that gathered
-    # per-photon columns are (16, N): the minor axis is the photon axis, which
-    # keeps every elementwise op on full 128-wide vector lanes ((N, 16) arrays
-    # waste 7/8 of each lane group on TPU tiling).  One matrix gather per
-    # search replaces ~12 scalar-array gathers.  Row layout in PCOL below;
-    # None until to_device packs it.
+    # per-photon columns are (16, N): the minor axis is the photon axis, so
+    # every per-row elementwise op reads a contiguous (N,) vector.  One matrix
+    # gather per search replaces ~12 scalar-array gathers.  Row layout in PCOL
+    # below; None until to_device packs it.
     packed: Optional[jax.Array] = None
-    # 8-row slim variant (PCOL_SLIM) for 2-D cartesian/cylindrical frames with
-    # no phi-hat velocity: exactly one f32 sublane tile, so the per-invocation
-    # fused-loop gather moves half the bytes of the 16-row matrix.  gamma is
-    # recomputed in-kernel from (v0, v1); ne_lab pre-divides dens_lab by m_p.
-    # None when the config needs the full row set.
-    packed_slim: Optional[jax.Array] = None
 
     @property
     def num_elements(self) -> int:
@@ -99,8 +92,8 @@ class HydroFrame:
         return jnp.stack([bx, by, bz], axis=-1)
 
 
-# Row layout of HydroFrame.packed (padded to a multiple of 8 for clean TPU
-# sublane tiling).  For 3-D configs v0..v2 hold the fluid velocity ALREADY in
+# Row layout of HydroFrame.packed (padded to a multiple of 8 rows; whether
+# the padding still pays on the GPU is unmeasured).  For 3-D configs v0..v2 hold the fluid velocity ALREADY in
 # MCRaT Cartesian (it is per-cell constant there, so to_device pre-transforms
 # it); in 2-D/2.5-D they stay in the hydro basis and the azimuth comes from
 # the photon position.  sin1/cos1 cache sin/cos of the cell's angular r1
@@ -116,11 +109,6 @@ PCOL = dict(
     sin2=16, cos2=17,  # 3-D spherical only (rows 16+ absent otherwise)
 )
 PACKED_WIDTH = 16
-
-# Slim row layout (HydroFrame.packed_slim): the minimum per-cell state of the
-# 2-D cartesian/cylindrical fused round — one 8-sublane f32 tile exactly.
-PCOL_SLIM = dict(r0=0, r1=1, dr0=2, dr1=3, v0=4, v1=5, ne_lab=6, temp=7)
-SLIM_WIDTH = 8
 
 
 def packed_width(cfg: Config) -> int:
@@ -303,21 +291,6 @@ class HydroFrameHost:
             cols.update(sin2=np.sin(self.r2), cos2=np.cos(self.r2))
         for name, val in cols.items():
             packed[PCOL[name], :] = val
-        packed_slim = None
-        if (
-            self.cfg.dims is Dims.TWO
-            and self.cfg.geometry
-            in (Geometry.CARTESIAN, Geometry.CYLINDRICAL, Geometry.SPHERICAL)
-            and not np.any(self.v2)
-        ):
-            # spherical 2-D frames carry the slim matrix for the fused
-            # kernel's ULTRA path only (its sin/cos theta cell cache is
-            # recomputed in-kernel from the cell index); the plain slim path
-            # stays cart/cyl because find_cell_rows needs the trig rows
-            packed_slim = np.stack([
-                self.r0, self.r1, self.dr0, self.dr1,
-                self.v0, self.v1, self.dens_lab * (1.0 / M_P), self.temp,
-            ])
         return HydroFrame(
             r0=put(self.r0), r1=put(self.r1), r2=put(self.r2),
             dr0=put(self.dr0), dr1=put(self.dr1), dr2=put(self.dr2),
@@ -329,7 +302,6 @@ class HydroFrameHost:
             domain=put(self.domain),
             nonthermal_dens=put(nt),
             packed=put(packed),
-            packed_slim=put(packed_slim) if packed_slim is not None else None,
         )
 
 
@@ -345,9 +317,8 @@ class RectilinearIndex:
     Exact point location for rectilinear grids (PLUTO .dbl grids from
     grid.out cell edges, synthetic/analytic grids, RIKEN remapped grids).
     Uniformly-spaced axes (detected at build time) use O(1) arithmetic
-    ``floor((x - lo) * inv_d)`` — measured 10x cheaper than the searchsorted
-    on TPU (0.22 vs 2.15 ms per 1M photons); non-uniform axes fall back to a
-    compare-all binary search.  Cell SoA order must be C-order raveled
+    ``floor((x - lo) * inv_d)`` in place of a search; non-uniform axes fall
+    back to a compare-all search.  Cell SoA order must be C-order raveled
     meshgrid: idx = (i*n1 + j)*n2 + k.
     """
 
@@ -368,9 +339,8 @@ class RectilinearIndex:
         if self.uniform[axis] and self.lo is not None:
             i = jnp.floor((x - self.lo[axis]) * self.inv_d[axis]).astype(jnp.int32)
         else:
-            # method="compare_all" matters: the default scan-based binary
-            # search is ~20x slower on TPU for these edge-table sizes
-            # (log-depth gathers vs one broadcast compare on the VPU).
+            # method="compare_all": one broadcast compare over the (small)
+            # edge table instead of log-depth dependent gathers
             i = jnp.searchsorted(edges, x, side="right", method="compare_all") - 1
         return jnp.clip(i, 0, n - 1)
 
@@ -396,7 +366,7 @@ class RectilinearIndex:
 class BinnedIndex:
     """Uniform-bin CSR index over an unstructured cell list (AMR output).
 
-    TPU-native version of the reference's (disabled) SpatialGrid
+    JAX version of the reference's (disabled) SpatialGrid
     (Src/geometry.c:423-676): cells are counting-sorted into uniform bins; a
     photon gathers the candidate lists of its bin's +/-1 neighborhood (the bin
     size is >= the largest cell size per axis, so the containing cell's center
@@ -534,16 +504,14 @@ def find_cell_rows(cfg: Config, index, frame: HydroFrame, pos, cached, row):
     """Containing-cell lookup carrying the (16, N) packed property columns.
 
     The carried columns make the reference's per-photon ``checkInBlock`` fast
-    path (Src/mclib.c:510-520) a pure VPU AABB test — no gather needed to
+    path (Src/mclib.c:510-520) a pure elementwise AABB test — no gather needed to
     decide whether a photon stayed in its cell.  The index search + one packed
     gather then resolve the movers; photons still in their cached cell keep the
     carried values (this also pins the cell choice for points on cell seams).
 
-    NB measured on v5e: running the search under ``lax.cond(any(miss))`` saves
-    only ~3% in the optically-thick regime (the searchsorted is cheap in the
-    transposed layout) but costs ~40% whenever it fires, because a cond whose
-    branches return (16, N) buffers defeats fusion of the surrounding round
-    body.  Unconditional search wins on both regimes.
+    The search runs unconditionally, not under ``lax.cond(any(miss))``: a
+    cond whose branches return (16, N) buffers splits the fusion of the
+    surrounding round body.
 
     Vectorizes findContainingHydroCell (reference: Src/mclib.c:436-615).
     Returns (cell, row, in_grid).
@@ -576,30 +544,6 @@ def gather_rows(frame: HydroFrame, cell):
     return frame.packed[:, safe]
 
 
-def find_cell_direct(cfg: Config, index, frame: HydroFrame, pos):
-    """Carried-row-free containing-cell lookup for deterministic indices.
-
-    RectilinearIndex point location is exact and assigns every in-domain
-    position a unique cell, so the cached-cell AABB pin of
-    :func:`find_cell_rows` is redundant there — this variant skips it (and
-    the (16, N) where-merge it implies).  Same contract as
-    findContainingHydroCell (reference: Src/mclib.c:436-615): out-of-domain
-    photons get cell = -1 (huge-mfp sentinel, mclib.c:589-595).
-    Returns (cell, in_grid).
-    """
-    r0, r1, r2 = geo.mcrat_to_hydro(cfg, pos[..., 0], pos[..., 1], pos[..., 2])
-    use_r2 = cfg.dims is Dims.THREE
-    dom = frame.domain
-    inside = (
-        (r0 > dom[0, 0]) & (r0 < dom[0, 1]) & (r1 > dom[1, 0]) & (r1 < dom[1, 1])
-    )
-    if use_r2:
-        inside = inside & (r2 > dom[2, 0]) & (r2 < dom[2, 1])
-    cell = index.find(r0, r1, r2, frame, None)
-    cell = jnp.where(inside, cell, -1)
-    return cell, inside & (cell >= 0)
-
-
 def find_cell(cfg: Config, index, frame: HydroFrame, pos, cached):
     """Containing-cell lookup with cached fast path.
 
@@ -630,8 +574,7 @@ def find_cell(cfg: Config, index, frame: HydroFrame, pos, cached):
 
     # Skip the index search entirely when every in-domain photon is still in
     # its cached cell — in optically thick regions (mfp << cell size) most
-    # rounds take this branch, and lax.cond with a scalar predicate is a real
-    # branch on TPU.
+    # rounds take this branch (lax.cond with a scalar predicate).
     need_search = inside & ~in_cached
 
     def do_search(_):

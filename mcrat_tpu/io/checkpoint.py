@@ -1,6 +1,6 @@
 """Checkpoint / resume / elastic restart.
 
-TPU-native re-design of the reference checkpoint subsystem
+JAX re-design of the reference checkpoint subsystem
 (saveCheckpoint/readCheckpoint, Src/mcrat_io.c:838-1134, and the elastic
 process-remapping collectives at Src/mcrat.c:166-448):
 

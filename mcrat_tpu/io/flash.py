@@ -1,6 +1,6 @@
 """FLASH 2-D AMR HDF5 frame reader.
 
-TPU-native re-design of readAndDecimate (reference: Src/mclib_flash.c:60-431):
+JAX re-design of readAndDecimate (reference: Src/mclib_flash.c:60-431):
 reads the block datasets, keeps leaf nodes (node type == 1), expands each
 block into 8x8 cells with the fixed sub-cell offsets, applies unit scales,
 derives (gamma, lab density, temperature), and decimates to the live photon

@@ -1,6 +1,6 @@
 """Photon HDF5 output with the ProcessMCRaT-compatible schema.
 
-TPU-native re-design of printPhotons / dirFileMerge / the MERGE tool
+JAX re-design of printPhotons / dirFileMerge / the MERGE tool
 (reference: Src/mcrat_io.c:114-836, 1239-1772; Src/merge.c): per-process files
 ``mc_proc_<rank>.h5`` hold one group per scattering frame with 1-D datasets
 

@@ -1,6 +1,6 @@
 """PLUTO .dbl frame reader (grid.out + dbl.out + data.XXXX.dbl).
 
-TPU-native re-design of readPluto (reference: Src/mclib_pluto.c:1058-1459):
+JAX re-design of readPluto (reference: Src/mclib_pluto.c:1058-1459):
 parses grid.out cell edges into centers/widths (readGridFile, :852-988), the
 dbl.out variable name order (readDblOutFile, :990-1056), memory-maps the raw
 double binary keyed by rho/vx1/vx2/vx3/prs/bx1/bx2/bx3, applies per-geometry

@@ -1,6 +1,6 @@
 """PLUTO-Chombo AMR HDF5 frame reader.
 
-TPU-native re-design of readPlutoChombo (reference: Src/mclib_pluto.c:12-801):
+JAX re-design of readPlutoChombo (reference: Src/mclib_pluto.c:12-801):
 reads the Chombo AMR hierarchy (/Chombo_global@SpaceDim, @num_levels,
 component_%d names, per-level boxes + flat data + prob_domain/dx/ref_ratio/
 logr/domBeg*/g_x*stretch attributes), reconstructs cell centers including

@@ -1,6 +1,6 @@
 """Analytic outflow models (the framework's validation problems).
 
-TPU-native re-design of Src/analytic_outflows.c.  In the reference these are
+JAX re-design of Src/analytic_outflows.c.  In the reference these are
 in-place overwrites of a *loaded* hydro frame, so even validation runs need
 real simulation files; here synthetic rectilinear grids are first-class, so the
 full pipeline runs with no data files at all (SURVEY.md section 4 item 1).

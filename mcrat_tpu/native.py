@@ -1,19 +1,36 @@
 """ctypes bindings for the native host-runtime library (native/mcrat_native.cpp).
 
-Loads ``native/libmcrat_native.so`` when present; every entry point has a
-numpy fallback so a pure-Python checkout stays fully functional.  Build with
-``make -C native``.
+Builds ``native/libmcrat_native.so`` on first use (``make -C native``) and
+rebuilds it when it is older than its source.  Every entry point has a numpy
+fallback, so a checkout without a C++ compiler stays fully functional.
 """
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
+import subprocess
 from typing import Optional
 
 import numpy as np
 
+log = logging.getLogger(__name__)
+
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native"
+)
+
+
+def _build() -> None:
+    try:
+        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                       capture_output=True, text=True, timeout=120)
+    except subprocess.CalledProcessError as e:
+        log.warning("native build failed (numpy fallback in use): %s", e.stderr.strip())
+    except (OSError, subprocess.TimeoutExpired) as e:
+        log.warning("native build failed (numpy fallback in use): %s", e)
 
 
 def _load():
@@ -21,25 +38,16 @@ def _load():
     if _TRIED:
         return _LIB
     _TRIED = True
-    native_dir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native"
-    )
-    path = os.path.join(native_dir, "libmcrat_native.so")
-    if not os.path.exists(path) and os.path.exists(
-        os.path.join(native_dir, "mcrat_native.cpp")
+    path = os.path.join(_NATIVE_DIR, "libmcrat_native.so")
+    src = os.path.join(_NATIVE_DIR, "mcrat_native.cpp")
+    if os.path.exists(src) and (
+        not os.path.exists(path) or os.path.getmtime(path) < os.path.getmtime(src)
     ):
-        # first-use build (the .so is a build artifact, not committed)
-        import subprocess
-
-        try:
-            subprocess.run(
-                ["make", "-C", native_dir], check=True, capture_output=True, timeout=120
-            )
-        except Exception:
-            pass
+        _build()
     try:
         lib = ctypes.CDLL(path)
-    except OSError:
+    except OSError as e:
+        log.warning("native library unavailable (numpy fallback in use): %s", e)
         return None
     dp = ctypes.POINTER(ctypes.c_double)
     i32p = ctypes.POINTER(ctypes.c_int32)

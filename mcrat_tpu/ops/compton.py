@@ -1,6 +1,6 @@
 """Batched polarized Compton / Klein-Nishina scattering.
 
-TPU-native re-design of the reference scattering kernel
+JAX re-design of the reference scattering kernel
 (Src/mcrat_scattering.c:151-623).  The reference performs one scattering at a
 time with GSL matrix algebra; here the full pipeline — boost to the electron
 rest frame, the two alignment rotations, KN angle sampling (batched rejection),

@@ -1,6 +1,6 @@
 """Cyclo-synchrotron emission, absorption, and rebinning.
 
-TPU-native re-design of Src/mc_cyclosynch.c (~1100 LoC + 930 LoC rebinning):
+JAX re-design of Src/mc_cyclosynch.c (~1100 LoC + 930 LoC rebinning):
 
 * B-field models (equipartition with internal or total energy via EPSILON_B,
   or directly from the MHD simulation) and the cyclotron frequency;

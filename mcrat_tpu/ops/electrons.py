@@ -1,6 +1,6 @@
 """Batched electron sampling.
 
-TPU-native re-design of the reference electron module (Src/electron.c):
+JAX re-design of the reference electron module (Src/electron.c):
 thermal Maxwell-Juttner / low-temperature Maxwell-Boltzmann draws, the relative
 polar-angle inverse CDF, the rotation into the photon's frame, and the
 non-thermal power-law / broken-power-law inverse-CDF samplers.
@@ -66,7 +66,10 @@ def sample_thermal_gamma_beta(key, temp, max_iters: int = 12):
         p2 = u[..., 0] * u[..., 1]
         um = u[..., 3]
         prod = jnp.where(um < cum1, u[..., 0], jnp.where(um < cum2, p2, p2 * u[..., 2]))
-        xi = -jnp.log(prod)
+        # a product of float32 uniforms can underflow to 0 (a raw draw of
+        # exactly 0 becomes tiny, and tiny * u flushes); -log(0) = inf would
+        # be accepted as an infinite-gamma electron
+        xi = -jnp.log(jnp.maximum(prod, jnp.finfo(dtype).tiny))
         return (xi, u[..., 4])
 
     def accept(xi, u_acc):

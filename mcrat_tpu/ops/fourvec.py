@@ -1,10 +1,10 @@
 """Batched special-relativistic four-vector operations.
 
-TPU-native replacement for the reference's GSL-based single-photon routines
+JAX replacement for the reference's GSL-based single-photon routines
 (lorentzBoost, Src/mclib.c:302-407; zeroNorm, Src/mclib.c:409-434).  Instead of
 building a 4x4 matrix and calling dgemv per photon, the boost is expressed in
 closed form on ``(..., 4)`` arrays so XLA fuses it into surrounding elementwise
-work on the VPU.
+work.
 
 Conventions: four-vectors are arrays with trailing axis 4 laid out as
 (p0, p1, p2, p3) = (E/c, px, py, pz); boosts take the 3-velocity ``beta`` of the

@@ -1,6 +1,6 @@
 r"""Hot (energy/temperature-dependent) Compton cross-section tables.
 
-TPU-native re-design of the reference hot-cross-section module
+JAX re-design of the reference hot-cross-section module
 (Src/hot_x_section.c, 1239 LoC): "hot" total cross sections a la Dolence+2009 /
 Canfield+1987,
 
@@ -29,7 +29,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .. import pytree as struct
 
 from ..config import Config, NonthermalDist
 from .compton import kn_cross_section
@@ -58,15 +58,9 @@ class HotCrossSectionTable:
     # (4, (N_PH_E+1)*(N_T+1)) bilinear corner matrix: rows are the flattened
     # thermal table shifted by 0 / 1 / ny / ny+1, so the four corners of every
     # lane's interpolation cell come from ONE minor-axis matrix gather.  Kept
-    # as a real input array deliberately: when the shifts are fused into the
-    # gather's operand XLA abandons the vectorized gather path (measured 40 ms
-    # vs 0.1 ms per 1M-lane interp on v5e).  None => built on the fly.
+    # as a real input array so the gather's operand is never a fusion product
+    # (see _bilinear).  None => built on the fly.
     thermal_quad: Optional[jax.Array] = None
-    # STATIC (non-pytree) global surrogate of the first subgroup's
-    # sigma_sub(eps') as a flat float tuple (see _sub1_cheb_static): lets the
-    # fused kernel bake the nonthermal tau fallback as compile-time constants
-    # — no gather, no aux planes, no stall-on-scatter.
-    sub1_cheb: Optional[tuple] = struct.field(pytree_node=False, default=None)
 
 
 def _boosted_xsec(eps, mu, gamma):
@@ -90,11 +84,11 @@ def _host_f64():
     """Context forcing table construction onto the host CPU in true float64.
 
     The build MUST NOT run on the accelerator with the session's default
-    precision: on the TPU float64 is emulated (and the x64 flag is usually
-    off, silently degrading to float32), and a round-3 cache built that way
-    carried 1237 underflowed floor entries in the table INTERIOR — which the
-    bilinear interpolation and especially the per-cell Chebyshev fits then
-    amplified into wildly wrong cross sections.
+    precision: the x64 flag is usually off there, silently degrading the
+    quadrature to float32, and a cache built that way carried 1237
+    underflowed floor entries in the table INTERIOR, which the bilinear
+    interpolation amplified into wildly wrong cross sections.  The CPU
+    backend is present beside the GPU one, so this works on a GPU host too.
     """
     import contextlib
 
@@ -216,9 +210,9 @@ def build_nonthermal_table(cfg: Config, n_gamma_nodes: int = 128, n_mu_nodes: in
 # ---------------------------------------------------------------------------
 
 # v2: float32-safe 1e-30 table floor (was 1e-300 -> -inf)
-# v3: build forced onto host CPU in true float64 — a v2 cache built in the
-#     TPU bench process (x64 off + emulated f64) carried underflowed interior
-#     entries that poisoned both interpolation and the Chebyshev surrogates
+# v3: build forced onto host CPU in true float64 — a v2 cache built on the
+#     accelerator with x64 off carried underflowed interior entries that
+#     poisoned the interpolation
 CACHE_VERSION = 3
 
 
@@ -244,48 +238,6 @@ def _cache_header(cfg: Config) -> dict:
             gamma_break=cfg.gamma_break or 0.0,
         )
     return h
-
-
-def _sub1_cheb_static(cfg: Config, log_e: np.ndarray, nt_col0: np.ndarray) -> tuple:
-    """Global two-interval Chebyshev surrogate of sigma_sub for subgroup 1.
-
-    The biased multi-population optical depth collapses algebraically to
-    tau0 * (1 + N_GAMMA) whenever the cell has thermal electrons (bias_i
-    tau_i == tau_norm by construction, reference: Src/optical_depth.c:60-112,
-    177-183); sigma_sub is needed only for the tau_norm fallback in
-    thermal-free cells, and only for the FIRST subgroup.  Since sigma_sub is
-    a function of eps' alone, one global fit serves every cell — returned as
-    a flat float tuple so the fused kernel bakes it in as constants.
-
-    Layout: (f1, inv_knee, span_inv, c_lo[CHEB_DLO+1], c_hi[CHEB_DHI+1]) with
-    the same linear-x / log-space split as thermal_cheb_cells, knee at
-    eps' * sqrt(g_lo g_hi) = 1.  Measured worst-case sigma error 0.11-0.14%.
-    """
-    import math
-
-    from .cyclosynch import electron_dist_subgroup_dens
-
-    lgmin, lgmax = math.log10(cfg.gamma_min), math.log10(cfg.gamma_max)
-    dg = (lgmax - lgmin) / cfg.n_gamma
-    g_lo, g_hi = 10.0 ** lgmin, 10.0 ** (lgmin + dg)
-    inv_knee = math.sqrt(g_lo * g_hi)
-    s = -math.log10(inv_knee)
-    x = 10.0 ** log_e * inv_knee
-    lo = x < 1.0
-    t_lo = 2.0 * np.clip(x, 0.0, 1.0) - 1.0
-    t_hi = np.clip(2.0 * (log_e - s) / (log_e[-1] - s) - 1.0, -1.0, 1.0)
-    c_lo, *_ = np.linalg.lstsq(
-        np.polynomial.chebyshev.chebvander(t_lo[lo], CHEB_DLO), nt_col0[lo],
-        rcond=None,
-    )
-    c_hi, *_ = np.linalg.lstsq(
-        np.polynomial.chebyshev.chebvander(t_hi[~lo], CHEB_DHI), nt_col0[~lo],
-        rcond=None,
-    )
-    f1 = float(electron_dist_subgroup_dens(cfg)[0])
-    span_inv = 1.0 / (log_e[-1] - s)
-    return (f1, float(inv_knee), float(span_inv),
-            *(float(v) for v in c_lo), *(float(v) for v in c_hi))
 
 
 def load_or_build(cfg: Config, cache_path: Optional[str] = None, dtype=None) -> HotCrossSectionTable:
@@ -321,16 +273,10 @@ def load_or_build(cfg: Config, cache_path: Optional[str] = None, dtype=None) -> 
     dt = np.dtype(dtype or cfg.dtype)
     nt = data["nonthermal"] if "nonthermal" in getattr(data, "files", data) else None
     frac = None
-    sub1 = None
     if cfg.nonthermal_e_dist is not NonthermalDist.OFF:
         from .cyclosynch import electron_dist_subgroup_dens
 
         frac = electron_dist_subgroup_dens(cfg)
-        if nt is not None:
-            sub1 = _sub1_cheb_static(
-                cfg, np.asarray(data["log_e"], dtype=np.float64),
-                np.asarray(nt, dtype=np.float64)[:, 0],
-            )
     return HotCrossSectionTable(
         log_e=jnp.asarray(np.asarray(data["log_e"]), dtype=dt),
         log_t=jnp.asarray(np.asarray(data["log_t"]), dtype=dt),
@@ -340,7 +286,6 @@ def load_or_build(cfg: Config, cache_path: Optional[str] = None, dtype=None) -> 
         thermal_quad=jnp.asarray(
             _corner_quad(np.asarray(data["thermal"])), dtype=dt
         ),
-        sub1_cheb=sub1,
     )
 
 
@@ -373,11 +318,9 @@ def _bilinear(table, x_grid, y_grid, x, y, quad=None):
     ty = fy - j0
     base = i0 * ny + j0
     # ONE minor-axis matrix gather instead of four flat-vector gathers, from
-    # a PRE-MATERIALIZED corner matrix: TPU executes (W, M)[:, idx] against a
-    # real input array as vectorized column copies (~0.1 ms at 1M indices),
-    # but if the operand is itself a fusion product (the rolls/stack traced
-    # inline) XLA abandons the vectorized path and the same interp measures
-    # 40 ms.  The shifted rows alias the four bilinear corners; the wrap
+    # a PRE-MATERIALIZED corner matrix (the barrier below keeps the rolls and
+    # stack from being fused into the gather's operand when it is built on
+    # the fly).  The shifted rows alias the four bilinear corners; the wrap
     # elements are never addressed (base + ny + 1 <= nx*ny - 1 by the clips).
     if quad is None:
         flat = table.reshape(-1)
@@ -493,82 +436,3 @@ def interp_nonthermal(table: HotCrossSectionTable, e_comv):
     v0 = table.nonthermal[i0]
     v1 = table.nonthermal[i0 + 1]
     return 10.0 ** (v0 * (1 - tx) + v1 * tx)
-
-
-# ---------------------------------------------------------------------------
-# Per-cell Chebyshev surrogate (in-kernel TABLE mode)
-# ---------------------------------------------------------------------------
-
-# Two-interval Chebyshev fit of log10 sigma_hat(eps') split at the per-cell
-# KN knee s = -log10(1 + 12 theta), with the LOW interval parameterized in
-# LINEAR x = eps' * (1 + 12 theta) in [0, 1] — where sigma_hat is an analytic
-# perturbation of sigma_KN(x), so degree 5 suffices — and the HIGH interval in
-# log10 eps' over [s, LOG_PH_E_MAX] at degree 8.  Measured worst-case relative
-# sigma error over the whole (eps', theta) table: 0.235% (p99 0.22%), the same
-# order as the MC noise in the reference's own 5e5-sample table entries
-# (hot_x_section.c:82-305), at 16 gathered rows instead of the previous
-# symmetric-log layout's 25.  This lets the fused Pallas kernel evaluate the
-# hot cross section per ROUND from the photon's current comoving energy
-# (branch-select Clenshaw recurrence), so TABLE-mode lanes never stall after
-# a scatter.
-CHEB_DLO = 5  # low-interval degree (linear x-space)
-CHEB_DHI = 8  # high-interval degree (log space)
-CHEB_M = 32  # bilinear resampling nodes per interval
-CHEB_ROWS = 1 + (CHEB_DLO + 1) + (CHEB_DHI + 1)  # inv-knee row + two coef sets
-
-
-def _cheb_pinv(deg: int):
-    x = np.cos(np.pi * (np.arange(CHEB_M) + 0.5) / CHEB_M)
-    a = np.polynomial.chebyshev.chebvander(x, deg)
-    return np.linalg.pinv(a), x
-
-
-def thermal_cheb_cells(table: HotCrossSectionTable, temp_cells) -> jax.Array:
-    """(CHEB_ROWS, n_cells) per-cell sigma_hat surrogate rows.
-
-    Row 0 is inv_knee = 10^-s = 1 + 12 theta (clipped to the table span);
-    rows 1..1+CHEB_DLO are Chebyshev coefficients of log10 sigma_hat in
-    t = 2 x - 1 with x = eps' * inv_knee over x in [0, 1]; the remaining rows
-    cover t = 2 log10(x)/(LOG_PH_E_MAX - s) - 1 above the knee.  Cells below
-    the theta floor are fitted to the exact KN curve, mirroring
-    interp_thermal's cold branch (reference: hot_x_section.c:336-340).  Built
-    once per (frame, table) — two bilinear resamplings at CHEB_M nodes and two
-    (deg+1, 32) @ (32, n_cells) matmuls.
-    """
-    from ..constants import KB_OVER_MEC2
-
-    dt = table.thermal.dtype
-    pinv_lo_np, x_np = _cheb_pinv(CHEB_DLO)
-    pinv_hi_np, _ = _cheb_pinv(CHEB_DHI)
-    pinv_lo = jnp.asarray(pinv_lo_np, dtype=dt)
-    pinv_hi = jnp.asarray(pinv_hi_np, dtype=dt)
-    xs = jnp.asarray(x_np, dtype=dt)
-
-    theta = KB_OVER_MEC2 * jnp.asarray(temp_cells, dtype=dt)
-    cold = theta < 10.0 ** LOG_T_MIN
-    log_th = jnp.log10(jnp.maximum(theta, 1e-30))
-    lo_e = table.log_e[0]
-    hi_e = table.log_e[-1]
-    s = jnp.clip(-jnp.log10(1.0 + 12.0 * theta), lo_e + 1.0, hi_e - 1.0)
-
-    def sample(le_nodes):
-        vals = _bilinear(
-            table.thermal, table.log_e, table.log_t,
-            le_nodes, jnp.broadcast_to(log_th[None, :], le_nodes.shape),
-            quad=table.thermal_quad,
-        )
-        kn = jnp.log10(jnp.maximum(kn_cross_section(10.0 ** le_nodes), 1e-30))
-        return jnp.where(cold[None, :], kn, vals)
-
-    # low interval: nodes at x = (cos+1)/2 in (0, 1), evaluated at
-    # log10 eps' = s + log10 x (clamped to the table floor)
-    x_lo = 0.5 * (xs + 1.0)
-    le_lo = jnp.maximum(
-        s[None, :] + jnp.log10(jnp.maximum(x_lo, 1e-30))[:, None], lo_e
-    )
-    c_lo = pinv_lo @ sample(le_lo)
-    # high interval: log space [s, hi_e]
-    le_hi = 0.5 * (hi_e - s)[None, :] * xs[:, None] + 0.5 * (hi_e + s)[None, :]
-    c_hi = pinv_hi @ sample(le_hi)
-    inv_knee = 10.0 ** (-s)
-    return jnp.concatenate([inv_knee[None, :], c_lo, c_hi], axis=0)

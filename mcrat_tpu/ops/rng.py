@@ -1,15 +1,13 @@
 """Counter-based randomness helpers for batched Monte Carlo sampling.
 
 The reference uses per-rank (and per-OpenMP-thread) GSL ranlxs0 streams
-(Src/mclib.c:448-462).  Here all sampling is driven by JAX threefry keys, split
-per (photon, round) so results are reproducible under any sharding of the
-photon axis.
+(Src/mclib.c:448-462).  Here all sampling is driven by JAX PRNG keys, split
+per round (and per shard on a mesh).
 
 The central utility is :func:`batched_rejection`: the reference's scalar
 ``while (y > f(x))`` loops (e.g. Src/electron.c:212-223, Src/mcrat_scattering.c:
 532-540) become a single ``lax.while_loop`` over the whole batch with a per-lane
-acceptance mask — each iteration proposes for every unaccepted lane at once on
-the VPU.
+acceptance mask — each iteration proposes for every unaccepted lane at once.
 """
 from __future__ import annotations
 
@@ -23,16 +21,15 @@ import jax.numpy as jnp
 def make_key(seed: int, impl: str | None = None) -> jax.Array:
     """Create the PRNG key for the transport hot path.
 
-    Defaults to the ``rbg`` implementation: on TPU it lowers to the hardware
-    RngBitGenerator instruction, ~10x cheaper per word than threefry's ALU
-    network — and the rejection samplers draw O(100) words per photon-round,
-    so key choice is first-order for throughput (measured: 31 -> 21
-    ns/photon-round on v5e just from this swap).  Threefry remains available
-    for bit-exact cross-platform reproducibility via
-    ``MCRAT_TPU_RNG=threefry2x32`` or the ``impl`` argument; every sampler is
-    implementation-agnostic (they only split/fold_in/draw).
+    Defaults to ``threefry2x32``: on an H100 80GB HBM3 (700 W power limit)
+    the headline round body runs ~27 % faster with it than with ``rbg``
+    (1.66-1.68 vs 2.27-2.33 ns/photon-round, PERF.md).  The rejection samplers draw O(100) words per
+    photon-round, so the choice matters for throughput.
+    ``MCRAT_TPU_RNG=rbg`` or the ``impl`` argument selects another
+    implementation; every sampler is implementation-agnostic (they only
+    split/fold_in/draw).
     """
-    impl = impl or os.environ.get("MCRAT_TPU_RNG", "rbg")
+    impl = impl or os.environ.get("MCRAT_TPU_RNG", "threefry2x32")
     return jax.random.key(seed, impl=impl)
 
 
@@ -57,9 +54,9 @@ def batched_rejection(
         for lanes that never accept within ``max_iters`` (should be a valid,
         physically sane draw).
     max_iters: number of unrolled trials.  Unrolling (instead of a
-        ``lax.while_loop``) keeps the whole sampler one fused VPU kernel: the
-        per-iteration device-loop overhead (~100 us on TPU) would otherwise
-        dominate the transport round cost.  With per-trial acceptance p the
+        ``lax.while_loop``) lets XLA fuse the whole sampler into the round
+        body instead of adding a device loop, with its own per-trip overhead,
+        per sampler per round.  With per-trial acceptance p the
         residual never-accepted fraction is (1-p)^max_iters — for the KN and
         Maxwell-Juttner samplers (p >~ 0.3) and the default 24 trials this is
         <~ 2e-4 of lanes, which keep the (physically valid) ``init`` draw.

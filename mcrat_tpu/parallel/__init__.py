@@ -6,7 +6,7 @@ viewing-angle bins x injection frames — plus OpenMP threads within a rank
 limited to startup metadata, a cross-section-table broadcast, and merge-time
 file collectives.
 
-The TPU-native analogue implemented here:
+The JAX analogue implemented here:
 
 * photon-population sharding over a ``jax.sharding.Mesh`` axis ("batch"):
   each device transports its photon shard independently inside ``shard_map``

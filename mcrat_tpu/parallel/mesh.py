@@ -9,8 +9,8 @@ The production path, :func:`sharded_transport_frame`, runs the SAME
 chunk/compaction protocol as the single-chip ``transport.transport_frame`` —
 bounded-round device executions, one host fetch per chunk, progress callbacks,
 geometric working-set shrink for runaway tails — with every device step a
-``shard_map`` over the mesh: the fused Pallas round kernel (when the config is
-covered) or the XLA engine runs independently per shard, scattering counts are
+``shard_map`` over the mesh: the XLA round body runs independently per shard,
+scattering counts are
 psum-reduced, and compacted buffers are re-balanced across shards.  Shards
 never exchange photons mid-frame, exactly like MCRaT ranks between frame
 barriers.
@@ -28,7 +28,6 @@ devices, checkpoint + kill/restart + merge).
 from __future__ import annotations
 
 import functools
-from types import SimpleNamespace
 from typing import Optional
 
 import jax
@@ -43,10 +42,8 @@ from ..transport import (
     Photons,
     _compact_step_impl,
     frame_time,
-    fused_transport_available,
     transport_frame,
     transport_rounds,
-    transport_rounds_fused,
 )
 
 BATCH_AXIS = "batch"
@@ -171,8 +168,7 @@ def _rep_spec(tree):
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "cfg", "mesh", "stokes_on", "max_rounds", "use_fused", "interpret",
-        "s_rows", "inner_rounds", "has_xsec",
+        "cfg", "mesh", "stokes_on", "max_rounds", "has_xsec",
     ),
 )
 def _sharded_chunk(
@@ -186,10 +182,6 @@ def _sharded_chunk(
     key,
     stokes_on: bool,
     max_rounds: int,
-    use_fused: bool,
-    interpret: bool,
-    s_rows: int,
-    inner_rounds: int,
     has_xsec: bool,
 ) -> ChunkResult:
     """One bounded-round transport chunk, shard_mapped over the photon axis.
@@ -200,12 +192,9 @@ def _sharded_chunk(
     between frame barriers.  n_scatt is psum-reduced, n_rounds is the pmax,
     all_done is the global AND.
 
-    ``key`` is ONE key; the per-shard split happens INSIDE this jit.  An
-    eager ``jax.random.split(sub, n_shards)`` before the call was the entire
-    single-device mesh tax (round-4 weak #1): +7.8 ms/chunk of host dispatch
-    on the critical path (tools/ablate_mesh.py — the shard_map itself
-    measured FREE, -0.5 ms vs the direct path, and the psum/pmax reductions
-    0.3 ms).
+    ``key`` is ONE key; the per-shard split happens INSIDE this jit, so no
+    eager ``jax.random.split(sub, n_shards)`` dispatch sits on the chunk
+    loop's critical path.
     """
     n_shards = mesh.devices.size
     keys = jax.random.split(key, n_shards)
@@ -227,19 +216,11 @@ def _sharded_chunk(
         check_vma=False,
     )
     def step(ph_shard, frame_rep, index_rep, xsec_rep, t_shard, keys_shard):
-        if use_fused:
-            res = transport_rounds_fused(
-                cfg, ph_shard, frame_rep, index_rep, t_shard, keys_shard[0],
-                xsec_table=xsec_rep if has_xsec else None,
-                stokes_on=stokes_on, max_rounds=max_rounds,
-                inner_rounds=inner_rounds, s_rows=s_rows, interpret=interpret,
-            )
-        else:
-            res = transport_rounds(
-                cfg, ph_shard, frame_rep, index_rep, t_shard, keys_shard[0],
-                xsec_table=xsec_rep if has_xsec else None,
-                stokes_on=stokes_on, max_rounds=max_rounds,
-            )
+        res = transport_rounds(
+            cfg, ph_shard, frame_rep, index_rep, t_shard, keys_shard[0],
+            xsec_table=xsec_rep if has_xsec else None,
+            stokes_on=stokes_on, max_rounds=max_rounds,
+        )
         done_all = jax.lax.psum(
             res.all_done.astype(jnp.int32), BATCH_AXIS
         ) == n_shards
@@ -262,9 +243,8 @@ def _compact_step_sharded(mesh: Mesh):
 
     Re-jits the shared compaction body with ``out_shardings`` = P(batch) over
     every output leaf, so the shrunken working buffers come out of the ONE
-    compaction executable already balanced across the mesh.  The eager
-    per-leaf ``device_put`` reshard this replaces cost ~6 ms per compaction
-    on the chunk loop's critical path (tools/ablate_mesh.py).
+    compaction executable already balanced across the mesh, with no eager
+    per-leaf ``device_put`` reshard on the chunk loop's critical path.
     """
     sh_batch = NamedSharding(mesh, P(BATCH_AXIS))
     n_shards = mesh.devices.size
@@ -294,27 +274,23 @@ def sharded_transport_frame(
     chunk_rounds: int = 64,
     progress=None,
     compact: bool = True,
-    fused=None,
-    interpret: bool = False,
-    s_rows: int = 128,
-    inner_rounds: int = 4,
     t_rem0=None,
     cs_limit=None,
 ) -> FrameResult:
     """Transport one hydro frame with the photon axis sharded over ``mesh``.
 
     The mesh twin of ``transport.transport_frame``: the full production
-    protocol (fused Pallas kernel where covered, bounded-round chunks, one
-    host fetch per chunk, tail compaction with shard rebalancing, progress
-    callbacks) runs with each device step a shard_map over the mesh.  This is
-    the TPU-pod replacement for the reference's whole MPI deployment story
+    protocol (bounded-round chunks, one host fetch per chunk, tail
+    compaction with shard rebalancing, progress callbacks) runs with each
+    device step a shard_map over the mesh.  This is the multi-device
+    replacement for the reference's whole MPI deployment story
     (Src/mcrat.c:146,457-479; Doc/mcrat_doc.tex:214-275): the photon axis is
     the scale axis, and aggregate throughput is per-chip throughput x mesh
     size because shards never exchange photons.
 
     ``chunk_rounds=0`` runs a single unbounded device execution (legacy
-    correctness-demo behavior; production wants bounded chunks for progress,
-    RPC limits, and compaction).
+    correctness-demo behavior; production wants bounded chunks for progress
+    and compaction).
 
     Reproducibility note: per-shard RNG keys are split from ``key`` by shard
     index, so a run is bit-reproducible for a FIXED mesh size but not across
@@ -337,24 +313,13 @@ def sharded_transport_frame(
     xsec_arg = xsec_table if has_xsec else jnp.zeros((), photons.p.dtype)
 
     def step_fn(work_ph, work_t, sub):
-        shard_cap = work_ph.capacity // n_shards
-        if fused is not None:
-            use_fused = fused
-        else:
-            use_fused = fused_transport_available(
-                cfg, SimpleNamespace(p=work_ph.p, capacity=shard_cap), xsec_table
-            )
         return _sharded_chunk(
             cfg, mesh, work_ph, frame, index, xsec_arg, work_t, sub,
-            stokes_on=stokes_on, max_rounds=chunk_rounds, use_fused=use_fused,
-            interpret=interpret, s_rows=s_rows, inner_rounds=inner_rounds,
-            has_xsec=has_xsec,
+            stokes_on=stokes_on, max_rounds=chunk_rounds, has_xsec=has_xsec,
         )
 
-    # Compaction emits already-mesh-sharded buffers via out_shardings — the
-    # eager per-leaf device_put reshard it replaces cost ~6 ms per compaction
-    # (tools/ablate_mesh.py) and, worse, was a host round-trip on the chunk
-    # loop's critical path.
+    # Compaction emits already-mesh-sharded buffers via out_shardings (no
+    # per-leaf device_put reshard on the chunk loop's critical path).
     compact_fn = _compact_step_sharded(mesh)
 
     return transport_frame(

@@ -32,9 +32,9 @@ from .transport import DEFAULT_MFP, Photons, _tau_rate
 # Independent hot-cross-section / biased-population machinery (numpy).
 #
 # The batched engine's TABLE + nonthermal path rests on ops.hot_xsec
-# (Gauss-Legendre tensor quadrature -> bilinear table -> Chebyshev surrogate)
-# and transport._tau_rate's bias bookkeeping; a bug shared by those would be
-# invisible to fused-vs-XLA comparisons (VERDICT r4 missing #3).  Everything
+# (Gauss-Legendre tensor quadrature -> bilinear table) and
+# transport._tau_rate's bias bookkeeping; a bug shared by those would be
+# invisible to comparisons between runs of the engine itself.  Everything
 # below re-derives sigma_hat and the generateSingleElectron ordering from the
 # published formulas with plain numpy trapezoid quadrature and inverse-CDF
 # sampling — no code shared with ops.hot_xsec or _tau_rate.  Reference:

@@ -78,3 +78,24 @@ def test_electron_relative_angle_law():
     emp = np.searchsorted(np.sort(c), grid) / len(c)
     ana = ((1.0 - 0.9 * grid) ** 2 - (1.0 + 0.9) ** 2) / (-4.0 * 0.9)
     np.testing.assert_allclose(emp, ana, atol=5e-3)
+
+
+def test_thermal_sampler_finite_when_uniform_products_underflow(monkeypatch):
+    """A float32 product of uniforms can flush to 0; the Maxwell-Juttner
+    proposal must not turn that into an infinite-gamma electron."""
+    import jax.numpy as jnp
+
+    from mcrat_tpu.ops import electrons
+
+    tiny = jnp.finfo(jnp.float32).tiny
+    # words: three proposal uniforms, the mixture pick (0.75 selects the
+    # Gamma(2) product u0 * u1 = tiny^2 -> 0), the acceptance uniform
+    words = jnp.asarray([tiny, tiny, tiny, 0.75, tiny], jnp.float32)
+    monkeypatch.setattr(
+        electrons, "uniform_pos",
+        lambda key, shape, dtype: jnp.broadcast_to(words, shape).astype(dtype),
+    )
+    g, gb = electrons.sample_thermal_gamma_beta(
+        jax.random.PRNGKey(0), jnp.full((8,), 1e5, jnp.float32)
+    )
+    assert np.isfinite(np.asarray(g)).all() and np.isfinite(np.asarray(gb)).all()

@@ -107,44 +107,3 @@ def test_nonthermal_table_monotone_kn():
     vals = 10.0**table
     assert np.isfinite(vals).all()
     assert (vals <= 1.0 + 1e-9).all()
-
-
-def test_thermal_cheb_cells_matches_interp(tmp_path):
-    """The per-cell Chebyshev surrogate used by the fused kernel's in-kernel
-    TABLE mode reproduces the bilinear table within its documented 1% bound
-    (worst-case measured 0.24% across the whole table; ops.hot_xsec module
-    comment).  Covers hot cells, a cold below-floor cell, and the interval
-    split on both sides of the KN knee."""
-    cfg = Config(dtype="float64", tau_calculation=TauCalculation.TABLE)
-    table = hot_xsec.load_or_build(cfg, str(tmp_path / "t.npz"))
-    temps = np.array([5e8, 5e9, 1e11, 1e5])  # theta ~ 0.08, 0.8, 16, below floor
-    rows = np.asarray(hot_xsec.thermal_cheb_cells(table, jnp.asarray(temps)))
-    assert rows.shape == (hot_xsec.CHEB_ROWS, len(temps))
-    dlo, dhi = hot_xsec.CHEB_DLO, hot_xsec.CHEB_DHI
-    rng = np.random.default_rng(0)
-    e = 10.0 ** rng.uniform(-11.5, 5.5, 256)
-    for c in range(len(temps)):
-        invk = rows[0, c]
-        s = -np.log10(invk)
-        exact = np.asarray(
-            hot_xsec.interp_thermal(
-                table, jnp.asarray(e), jnp.full(e.shape, temps[c])
-            )
-        )
-        x = e * invk
-        lo = x < 1.0
-        t = np.where(
-            lo,
-            2.0 * x - 1.0,
-            np.clip(2.0 * np.log10(np.maximum(x, 1e-300))
-                    / (hot_xsec.LOG_PH_E_MAX - s) - 1.0, -1.0, 1.0),
-        )
-        c_lo = np.concatenate([rows[1:2 + dlo, c], np.zeros(dhi - dlo)])
-        c_hi = rows[2 + dlo:, c]
-        coeffs = np.where(lo[None, :], c_lo[:, None], c_hi[:, None])
-        fit = np.zeros_like(t)
-        for k in range(dhi + 1):
-            fit += coeffs[k] * np.cos(k * np.arccos(np.clip(t, -1, 1)))
-        approx = 10.0 ** fit
-        rel = np.abs(approx - exact) / np.maximum(exact, 1e-30)
-        assert rel.max() < 0.01, (temps[c], rel.max())

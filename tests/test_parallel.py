@@ -57,9 +57,9 @@ def test_sharded_transport_matches_expectations():
 
 
 def test_sharded_fused_chunked_compaction():
-    """The production mesh path: fused Pallas kernel (interpret mode) under
-    shard_map, bounded-round chunks, and tail compaction with shard
-    rebalancing — statistics must match the single-chip XLA engine."""
+    """The production mesh path: the XLA round body under shard_map,
+    bounded-round chunks, and tail compaction with shard rebalancing —
+    statistics must match the single-device engine."""
     cfg = Config(
         dims=Dims.TWO, geometry=Geometry.SPHERICAL,
         simulation_type=SimType.SPHERICAL_OUTFLOW, dtype="float32",
@@ -85,16 +85,15 @@ def test_sharded_fused_chunked_compaction():
     res = sharded_transport_frame(
         cfg, mesh, ph_sh, frame, idx_r, 0.4, jax.random.PRNGKey(3),
         chunk_rounds=6, progress=lambda ns, nr: chunks.append((ns, nr)),
-        fused=True, interpret=True, s_rows=8, inner_rounds=2,
     )
     assert len(chunks) >= 2  # actually chunked
     np.testing.assert_allclose(
         float(jnp.sum(res.photons.weight)), float(jnp.sum(ph.weight)), rtol=1e-6
     )
-    # single-chip XLA engine on the identical population
+    # single-device engine on the identical population
     res_x = transport.transport_frame(
         cfg, ph, host.to_device(dtype=jnp.float32), idx, 0.4,
-        jax.random.PRNGKey(4), chunk_rounds=0, fused=False,
+        jax.random.PRNGKey(4), chunk_rounds=0,
     )
     for a, b, tol in [
         (int(res.n_scatt), int(res_x.n_scatt), 0.15),

@@ -1,6 +1,6 @@
 """Batched vs serial-ordered transport: statistical equivalence.
 
-The central structural claim of the TPU redesign (SURVEY.md section 7): the
+The central structural claim of the batched redesign (SURVEY.md section 7): the
 batched per-photon free-path engine reproduces the reference's serial
 global-min-time event loop *in distribution*.  This test runs both engines on
 the identical uniform cylindrical-outflow frame and compares event-count and

@@ -252,23 +252,3 @@ def test_2p5d_transport_azimuthal_drag():
     )
     assert abs(float(f0[ns0 > 0].mean())) < 0.1
     assert abs(float(f0[ns0 == 0].mean())) < 0.1
-
-
-def test_pad_gather_band_identity():
-    """The gather-band pad (transport._pad_gather_band) must be a pure
-    layout change: padded-table gathers return exactly the unpadded values,
-    tables outside the measured slow band pass through untouched."""
-    from mcrat_tpu.transport import _pad_gather_band
-
-    rng = np.random.default_rng(3)
-    small = jnp.asarray(rng.standard_normal((4, 1000)), jnp.float32)
-    assert _pad_gather_band(small) is small  # below the band: no-op
-
-    nc = 200_000  # inside the measured slow band
-    mat = jnp.asarray(rng.standard_normal((3, nc)), jnp.float32)
-    padded = _pad_gather_band(mat)
-    assert padded.shape == (3, 524_288)
-    idx = jnp.asarray(rng.integers(0, nc, 4096), jnp.int32)
-    np.testing.assert_array_equal(
-        np.asarray(padded[:, idx]), np.asarray(mat[:, idx])
-    )
